@@ -1,41 +1,35 @@
-# Reproducible environment for doppelspeller_tpu (reference Dockerfile:1-21,
-# re-designed for a TPU VM instead of a CPU workstation).
+# Reproducible environment for doppelspeller (reference Dockerfile:1-21,
+# re-designed for a CUDA GPU host instead of a CPU workstation).
 #
 # The reference builds Python 3.7 + BLAS from source for its numba/XGBoost
-# stack; a TPU-native build needs none of that — it needs a pinned
-# jax[tpu] wheel (the libtpu runtime ships inside the wheel) and a C++
-# toolchain for the native CSV fast loader (doppelspeller_tpu/native/,
-# compiled on first import and cached).
+# stack; this build needs none of that — it needs a pinned JAX with its
+# CUDA 12 plugin and a C++ toolchain for the native host kernels
+# (doppelspeller/native/, built on first use into the checkout's .cache/).
 #
-# Build:    docker build -t doppelspeller-tpu .
-# Run (on a Cloud TPU VM, which exposes the chips via /dev and the
-# accelerator runtime automatically with --privileged):
-#   docker run --privileged -v $PWD/data:/data -e PROJECT_DATA_PATH=/data \
-#       -it doppelspeller-tpu
+# Build:    docker build -t doppelspeller .
+# Run on a GPU host (NVIDIA container toolkit):
+#   docker run --gpus all -v $PWD/data:/data -e PROJECT_DATA_PATH=/data \
+#       -it doppelspeller python chip_smoke.py
 #
 # CPU-only development (tests force the CPU backend via tests/conftest.py
 # and an 8-device virtual mesh, so the full suite runs anywhere):
-#   docker run -it doppelspeller-tpu make test
+#   docker run -it doppelspeller make test
 
 FROM python:3.12-slim-bookworm
 
 ARG DEBIAN_FRONTEND=noninteractive
 
-# g++ for the native CSV loader (ctypes extension, built on first import);
-# make for the dev targets.  Versions mirror the environment the published
-# benchmark numbers were measured in (Debian 12, g++ 12.2).
+# g++ for the native host kernels (ctypes extension, built on first use);
+# make for the dev targets.
 RUN apt-get -y update \
     && apt-get -y install --no-install-recommends build-essential make git \
     && rm -rf /var/lib/apt/lists/*
 
-# Pinned to the versions the benchmarks were measured with.  jax[tpu]
-# bundles libtpu; on a machine without TPUs jax falls back to the CPU
-# backend with a warning (exactly what the test suite uses).
-RUN pip install --no-cache-dir \
-    "jax[tpu]==0.9.0" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
-    "numpy==2.0.2" pandas click pytest coverage
+# jax[cuda12] bundles the CUDA runtime libraries; on a machine without a GPU
+# JAX falls back to the CPU backend (what the test suite uses).
+RUN pip install --no-cache-dir "jax[cuda12]==0.9.0" "numpy==2.0.2" pytest coverage
 
-WORKDIR /doppelspeller_tpu
+WORKDIR /doppelspeller
 COPY . .
 RUN pip install --no-cache-dir -e .
 

@@ -1,19 +1,19 @@
 # Developer entry points (reference parity: Makefile:1-40, minus Docker —
-# the TPU build runs directly on the host attached to the chip).
+# the program runs directly on the host that holds the GPU).
 
 PYTHON ?= python
 
-.PHONY: test test-heavy test-all lint stage-example-data build-index train-model \
-        generate-predictions closest-search get-predictions-accuracy bench
+.PHONY: test test-heavy test-all test-gpu lint stage-example-data build-index \
+        train-model generate-predictions closest-search \
+        get-predictions-accuracy bench chip-smoke
 
-# Test lanes (measured on the 8-CPU virtual mesh, late r5):
-#   make test      fast lane, ~159 s  (115 tests; skips `heavy` and `slow`)
-#   heavy lane     10 compile-bound integration tests (~310 s when it held 5;
-#                                      round-5 additions roughly double that)
-#   slow lane      >10 min            (2 full CPU train→predict example-dataset
-#                                      parity runs — nightly material; the TPU
-#                                      PARITY.json run covers the same path)
-# `make test-all` runs all three.
+# Test lanes (CPU, virtual 8-device mesh; tests/conftest.py):
+#   make test       fast lane (skips `heavy` and `slow`)
+#   make test-heavy compile-bound integration tests
+#   slow lane       full CPU train→predict example-dataset parity runs
+#                   (needs the reference example dataset)
+#   make test-gpu   tests that compile kernels for a CUDA GPU
+# `make test-all` runs the three CPU lanes.
 test:
 	$(PYTHON) -m pytest tests/ -q -m 'not slow and not heavy'
 
@@ -22,6 +22,12 @@ test-heavy:
 
 test-all:
 	$(PYTHON) -m pytest tests/ -q -m ''
+
+test-gpu:
+	DOPPEL_TEST_GPU=1 $(PYTHON) -m pytest tests/ -q -m gpu
+
+chip-smoke:
+	$(PYTHON) chip_smoke.py
 
 lint:
 	$(PYTHON) scripts/lint.py
@@ -35,28 +41,28 @@ test-cov:
 	  || { echo "coverage not installed; running plain pytest"; $(PYTHON) -m pytest tests/ -q; }
 
 # full train -> predict -> accuracy on the reference example dataset;
-# asserts custom error <= 700 and writes PARITY.json (reproducible parity)
+# asserts custom error <= 700 (reproducible parity)
 example-parity:
 	$(PYTHON) scripts/example_parity.py
 
 stage-example-data:
-	$(PYTHON) -m doppelspeller_tpu.cli stage-example-data-set
+	$(PYTHON) -m doppelspeller.cli stage-example-data-set
 
 build-index:
-	$(PYTHON) -m doppelspeller_tpu.cli -vv build-index
+	$(PYTHON) -m doppelspeller.cli -vv build-index
 
 train-model:
-	$(PYTHON) -m doppelspeller_tpu.cli -vv train-model
+	$(PYTHON) -m doppelspeller.cli -vv train-model
 
 generate-predictions:
-	$(PYTHON) -m doppelspeller_tpu.cli -vv generate-predictions
+	$(PYTHON) -m doppelspeller.cli -vv generate-predictions
 
 # usage: make closest-search title="SOME TITLE"
 closest-search:
-	$(PYTHON) -m doppelspeller_tpu.cli -vv closest-search-single-title -t "$(title)"
+	$(PYTHON) -m doppelspeller.cli -vv closest-search-single-title -t "$(title)"
 
 get-predictions-accuracy:
-	$(PYTHON) -m doppelspeller_tpu.cli -vv get-predictions-accuracy
+	$(PYTHON) -m doppelspeller.cli -vv get-predictions-accuracy
 
 bench:
 	$(PYTHON) bench.py

@@ -1,8 +1,7 @@
 """Calibrate ``model_trust_threshold`` from ONE full-depth bench-scale run.
 
 The model stage's wave B re-scores every row whose wave-A head max lands in
-[model_widen_threshold, model_trust_threshold) — 22k of 49k rows at bench
-shapes, ~0.8 s of the 1.8 s stage.  Trusting is only wrong when the tail
+[model_widen_threshold, model_trust_threshold).  Trusting is only wrong when the tail
 holds a strictly higher-probability candidate (identity change) or an exact
 tie with the head max (tie-drop) AND the row would actually match
 (merged p > prediction_probability_threshold).  This script runs the full
@@ -14,7 +13,7 @@ be trusted (wave-B work saved) and how many of those rows' FINAL OUTCOMES
 truth.
 
 Usage: python scripts/calibrate_trust.py [n_titles] [n_queries]
-Writes /tmp/trust_calibration.json.
+Writes .cache/trust_calibration.json in the checkout.
 """
 
 import json
@@ -24,16 +23,18 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE = os.path.join(ROOT, ".cache")
+sys.path.insert(0, ROOT)
 
 import bench  # noqa: E402  (repo-root bench.py: world gen + quick trainer)
 
 n_titles = int(sys.argv[1]) if len(sys.argv) > 1 else 500_000
 n_queries = int(sys.argv[2]) if len(sys.argv) > 2 else 100_000
 
-from doppelspeller_tpu.ops.ngram_index import build_truth_index  # noqa: E402
-from doppelspeller_tpu.pipeline import Matcher  # noqa: E402
-from doppelspeller_tpu.utils.io import TitleSet  # noqa: E402
+from doppelspeller.ops.ngram_index import build_truth_index  # noqa: E402
+from doppelspeller.pipeline import Matcher  # noqa: E402
+from doppelspeller.utils.io import TitleSet  # noqa: E402
 
 cfg, truth, queries, actual = bench.make_synthetic_world(n_titles, n_queries)
 
@@ -55,7 +56,8 @@ t0 = time.time()
 matcher.predict(warm)
 print(f"# warmup {time.time()-t0:.0f}s", file=sys.stderr)
 
-dump = "/tmp/waves_full.npz"
+os.makedirs(CACHE, exist_ok=True)
+dump = os.path.join(CACHE, "waves_full.npz")
 os.environ["DOPPEL_DUMP_WAVES"] = dump
 t0 = time.time()
 res = matcher.predict(queries)
@@ -103,6 +105,6 @@ for t in grid:
     print(f"t={t}: trusted {trusted.sum()}, outcome diffs {diff.sum()}, "
           f"tail wins {int((trusted & ~a_wins).sum())}", file=sys.stderr)
 
-with open("/tmp/trust_calibration.json", "w") as f:
+with open(os.path.join(CACHE, "trust_calibration.json"), "w") as f:
     json.dump(out, f, indent=1)
 print(json.dumps(out["thresholds"], indent=1))

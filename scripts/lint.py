@@ -10,7 +10,7 @@ from pathlib import Path
 
 MAX_LINE = 120
 ROOT = Path(__file__).resolve().parent.parent
-TARGETS = ["doppelspeller_tpu", "tests", "bench.py", "__graft_entry__.py", "scripts"]
+TARGETS = ["doppelspeller", "tests", "bench.py", "__graft_entry__.py", "scripts"]
 
 findings = []
 

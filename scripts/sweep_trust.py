@@ -9,7 +9,7 @@ does to END accuracy (vs the synthetic world's ground truth) and to the
 model stage's wall time, on the same matcher in one process.
 
 Usage: python scripts/sweep_trust.py [n_titles] [n_queries]
-Writes /tmp/trust_sweep.json.
+Writes .cache/trust_sweep.json in the checkout.
 """
 
 import json
@@ -17,18 +17,17 @@ import os
 import sys
 import time
 
-import numpy as np
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import bench  # noqa: E402
 
 n_titles = int(sys.argv[1]) if len(sys.argv) > 1 else 500_000
 n_queries = int(sys.argv[2]) if len(sys.argv) > 2 else 100_000
 
-from doppelspeller_tpu.ops.ngram_index import build_truth_index  # noqa: E402
-from doppelspeller_tpu.pipeline import Matcher  # noqa: E402
-from doppelspeller_tpu.utils.io import TitleSet  # noqa: E402
+from doppelspeller.ops.ngram_index import build_truth_index  # noqa: E402
+from doppelspeller.pipeline import Matcher  # noqa: E402
+from doppelspeller.utils.io import TitleSet  # noqa: E402
 
 cfg, truth, queries, actual = bench.make_synthetic_world(n_titles, n_queries)
 
@@ -57,7 +56,7 @@ out = {"n_titles": n_titles, "n_queries": n_queries, "train_rounds":
 base_ids = None
 for t in grid:
     matcher.cfg = cfg.with_(model_trust_threshold=t)
-    # 2 reps, keep the faster (tunnel noise); accuracy identical across reps
+    # 2 reps, keep the faster; accuracy identical across reps
     best = None
     for _ in range(2):
         tt = time.time()
@@ -81,6 +80,7 @@ for t in grid:
           f"acc={acc:.5f} diffs={diffs}", file=sys.stderr)
 matcher.cfg = cfg
 
-with open("/tmp/trust_sweep.json", "w") as f:
+os.makedirs(os.path.join(ROOT, ".cache"), exist_ok=True)
+with open(os.path.join(ROOT, ".cache", "trust_sweep.json"), "w") as f:
     json.dump(out, f, indent=1)
 print(json.dumps(out["thresholds"], indent=1))

@@ -1,7 +1,7 @@
 """Summarize a jax.profiler trace directory (BENCH_TRACE_DIR) into the
 top time consumers — used to attribute rep-to-rep variance in bench runs.
 
-Usage: python scripts/trace_summary.py /tmp/bench_trace
+Usage: python scripts/trace_summary.py TRACE_DIR
 """
 
 import glob
@@ -35,4 +35,6 @@ def main(trace_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "/tmp/bench_trace")
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    main(sys.argv[1])

@@ -1,12 +1,12 @@
-"""CLI smoke tests (click runner, tiny data, CPU)."""
+"""CLI smoke tests (argparse entry point, tiny data, CPU)."""
 
+import csv
 import gzip
+import io
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
-from click.testing import CliRunner
 
 
 
@@ -15,7 +15,7 @@ def cli_env(tmp_path, monkeypatch):
     """Point PROJECT_DATA_PATH at a tiny staged dataset."""
     monkeypatch.setenv("PROJECT_DATA_PATH", str(tmp_path))
     # reset the config singleton so it picks up the env var
-    from doppelspeller_tpu.config import Config, set_config
+    from doppelspeller.config import Config, set_config
 
     cfg = Config(
         data_path=str(tmp_path),
@@ -33,6 +33,30 @@ def cli_env(tmp_path, monkeypatch):
     set_config(Config())
 
 
+def _write_csv(path, columns):
+    names = list(columns)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter="|", lineterminator="\n")
+        w.writerow(names)
+        w.writerows(zip(*(columns[n] for n in names)))
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f, delimiter="|"))
+
+
+def _run(capsys, argv, stdin=None, monkeypatch=None):
+    """Run the CLI in-process; returns (exit code, stdout)."""
+    from doppelspeller.cli import cli
+
+    if stdin is not None:
+        monkeypatch.setattr("sys.stdin", io.StringIO(stdin))
+    capsys.readouterr()
+    code = cli(argv)
+    return code, capsys.readouterr().out
+
+
 def _make_tiny_dataset(cfg):
     rng = np.random.RandomState(0)
     truth_titles = [
@@ -42,93 +66,78 @@ def _make_tiny_dataset(cfg):
              "oscar", "papas", "quick", "romeo", "sierra", "tango"] * 5
         )
     ]
-    truth = pd.DataFrame(
-        {"company_id": range(1, len(truth_titles) + 1), "name": truth_titles}
-    )
-    truth.to_csv(cfg.ground_truth_path, sep="|", index=False)
-    train = pd.DataFrame({
+    _write_csv(cfg.ground_truth_path, {
+        "company_id": range(1, len(truth_titles) + 1), "name": truth_titles,
+    })
+    _write_csv(cfg.train_path, {
         "train_index": range(30),
         "name": [truth_titles[i] + "x" for i in range(20)]
         + [f"zzz unknown {i}" for i in range(10)],
         "company_id": [i + 1 for i in range(20)] + [-1] * 10,
     })
-    train.to_csv(cfg.train_path, sep="|", index=False)
-    test = pd.DataFrame({
+    test = {
         "test_index": range(20),
         "name": [truth_titles[i] for i in range(10)]
         + [f"yyy unknown {i}" for i in range(10)],
-    })
-    test.to_csv(cfg.test_path, sep="|", index=False)
-    actuals = test.copy()
-    actuals["company_id"] = [i + 1 for i in range(10)] + [-1] * 10
-    actuals.to_csv(cfg.test_with_actuals_path, sep="|", index=False)
+    }
+    _write_csv(cfg.test_path, test)
+    _write_csv(cfg.test_with_actuals_path, dict(
+        test, company_id=[i + 1 for i in range(10)] + [-1] * 10,
+    ))
 
 
-def test_cli_full_flow(cli_env):
-    from doppelspeller_tpu.cli import cli
-
+def test_cli_full_flow(cli_env, capsys):
     cfg = cli_env
     _make_tiny_dataset(cfg)
-    runner = CliRunner()
 
-    r = runner.invoke(cli, ["-vv", "build-index"], catch_exceptions=False)
-    assert r.exit_code == 0, r.output
+    code, _ = _run(capsys, ["-vv", "build-index"])
+    assert code == 0
     assert os.path.exists(cfg.index_path)
 
-    r = runner.invoke(cli, ["-v", "train-model"], catch_exceptions=False)
-    assert r.exit_code == 0, r.output
+    code, _ = _run(capsys, ["-v", "train-model"])
+    assert code == 0
     assert os.path.exists(cfg.model_path)
 
-    r = runner.invoke(cli, ["-v", "generate-predictions"], catch_exceptions=False)
-    assert r.exit_code == 0, r.output
+    code, _ = _run(capsys, ["-v", "generate-predictions"])
+    assert code == 0
     assert os.path.exists(cfg.final_output_path)
 
-    r = runner.invoke(cli, ["-v", "get-predictions-accuracy"], catch_exceptions=False)
-    assert r.exit_code == 0, r.output
-    assert "Correctly matched titles" in r.output
+    code, out = _run(capsys, ["-v", "get-predictions-accuracy"])
+    assert code == 0
+    assert "Correctly matched titles" in out
 
     # multi-device mesh: same output file contents
-    single = pd.read_csv(cfg.final_output_path, sep="|")
-    r = runner.invoke(
-        cli, ["-v", "generate-predictions", "--devices", "8", "--platform", "cpu"],
-        catch_exceptions=False,
-    )
-    assert r.exit_code == 0, r.output
-    meshed = pd.read_csv(cfg.final_output_path, sep="|")
-    pd.testing.assert_frame_equal(single, meshed)
+    single = _read_csv(cfg.final_output_path)
+    code, _ = _run(capsys, ["-v", "generate-predictions", "--devices", "8",
+                            "--platform", "cpu"])
+    assert code == 0
+    assert _read_csv(cfg.final_output_path) == single
 
-    # exact queries must all be correct (stage 1)
-    out = pd.read_csv(cfg.final_output_path, sep="|")
-    assert (out.set_index("test_index").loc[range(10), "title_id"].values
-            == np.arange(1, 11)).all()
+    # exact queries must all be correct (stage 1), rows sorted by test_index
+    assert [int(r["test_index"]) for r in single] == list(range(20))
+    assert [int(r["title_id"]) for r in single[:10]] == list(range(1, 11))
 
 
-def test_cli_single_title(cli_env):
-    from doppelspeller_tpu.cli import cli
-
+def test_cli_single_title(cli_env, capsys):
     cfg = cli_env
     _make_tiny_dataset(cfg)
-    runner = CliRunner()
-    runner.invoke(cli, ["-v", "train-model"], catch_exceptions=False)
-    r = runner.invoke(
-        cli, ["-v", "closest-search-single-title", "-t", "alpha holdings 0"],
-        catch_exceptions=False,
-    )
-    assert r.exit_code == 0, r.output
-    assert "match_title_id" in r.output
+    _run(capsys, ["-v", "train-model"])
+    code, out = _run(capsys, ["-v", "closest-search-single-title", "-t",
+                              "alpha holdings 0"])
+    assert code == 0
+    assert "match_title_id" in out
+    # an empty title is a usage error, not a crash
+    assert _run(capsys, ["closest-search-single-title", "-t", "  "])[0] == 1
 
 
-def test_cli_serve(cli_env):
+def test_cli_serve(cli_env, capsys, monkeypatch):
     """The serve loop answers bare-title, JSON-single and batch requests,
     survives malformed input, and keeps one warm engine across requests."""
     import json
 
-    from doppelspeller_tpu.cli import cli
-
     cfg = cli_env
     _make_tiny_dataset(cfg)
-    runner = CliRunner()
-    runner.invoke(cli, ["-v", "train-model"], catch_exceptions=False)
+    _run(capsys, ["-v", "train-model"])
 
     requests = "\n".join([
         "alpha holdings 0",
@@ -141,11 +150,10 @@ def test_cli_serve(cli_env):
         json.dumps({"titles": []}),
         "",
     ]) + "\n"
-    r = runner.invoke(cli, ["-v", "serve", "--no-warmup"], input=requests,
-                      catch_exceptions=False)
-    assert r.exit_code == 0, r.output
-    lines = [json.loads(ln) for ln in r.output.splitlines()
-             if ln.startswith("{")]
+    code, out = _run(capsys, ["-v", "serve", "--no-warmup"], requests,
+                     monkeypatch)
+    assert code == 0
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     assert len(lines) == 7
     exact, single, batch, bad, str_titles, mixed_titles, empty = lines
     assert exact["match_title_id"] == 1 and exact["prediction"] == 1.0
@@ -158,29 +166,74 @@ def test_cli_serve(cli_env):
     assert empty == {"results": [], "latency_ms": 0.0}
 
     # mesh serving: same answers from an 8-device sharded engine
-    r = runner.invoke(
-        cli, ["-v", "serve", "--no-warmup", "--devices", "8",
-              "--platform", "cpu"],
-        input=requests, catch_exceptions=False,
-    )
-    assert r.exit_code == 0, r.output
-    mlines = [json.loads(ln) for ln in r.output.splitlines()
-              if ln.startswith("{")]
+    code, out = _run(capsys, ["-v", "serve", "--no-warmup", "--devices", "8",
+                              "--platform", "cpu"], requests, monkeypatch)
+    assert code == 0
+    mlines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     assert [m.get("match_title_id") for m in mlines[:2]] == [1, 2]
     assert [x["match_title_id"] for x in mlines[2]["results"]] == [3, -1]
 
 
-def test_cli_stage_example_data(cli_env, tmp_path):
-    from doppelspeller_tpu.cli import cli
-
+def test_cli_stage_example_data(cli_env, tmp_path, capsys):
     src = tmp_path / "src"
     src.mkdir()
     with gzip.open(src / "example_truth.csv.gz", "wb") as f:
         f.write(b"company_id|name\n1|abc\n")
-    runner = CliRunner()
-    r = runner.invoke(
-        cli, ["stage-example-data-set", "--source", str(src)],
-        catch_exceptions=False,
-    )
-    assert r.exit_code == 0, r.output
+    code, out = _run(capsys, ["stage-example-data-set", "--source", str(src)])
+    assert code == 0 and "staged" in out
     assert os.path.exists(cli_env.path("example_truth.csv"))
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--profile", "bogus"],
+    ["closest-search-single-title"],          # -t is required
+    ["no-such-command"],
+    [],
+])
+def test_cli_rejects_bad_arguments(argv, capsys):
+    """argparse usage errors exit with code 2 before any work starts."""
+    from doppelspeller.cli import cli
+
+    with pytest.raises(SystemExit) as exc:
+        cli(argv)
+    assert exc.value.code == 2
+
+
+def test_cli_parser_keeps_every_command_and_option():
+    from doppelspeller.cli import build_parser
+
+    p = build_parser()
+    a = p.parse_args(["-vv", "serve", "--no-warmup", "--devices", "4",
+                      "--platform", "cpu", "--profile", "throughput"])
+    assert (a.verbose, a.command, a.warmup, a.devices, a.platform,
+            a.profile) == (2, "serve", False, 4, "cpu", "throughput")
+    assert p.parse_args(["serve"]).warmup is True
+    for cmd in ("build-index", "train-model", "generate-predictions"):
+        a = p.parse_args([cmd, "--devices", "2"])
+        assert (a.devices, a.platform) == (2, None)
+    a = p.parse_args(["closest-search-single-title", "--title-to-search", "x"])
+    assert a.title == "x"
+    assert p.parse_args(["get-predictions-accuracy"]).verbose is None
+    assert p.parse_args(["stage-example-data-set"]).source
+
+
+def test_cli_version(capsys):
+    from doppelspeller import __version__
+    from doppelspeller.cli import cli
+
+    with pytest.raises(SystemExit) as exc:
+        cli(["--version"])
+    assert exc.value.code == 0
+    assert __version__ in capsys.readouterr().out
+
+
+def test_serve_config_profiles():
+    from doppelspeller.cli import serve_config
+    from doppelspeller.config import Config
+
+    cfg = Config(data_path="/tmp/x")
+    lat = serve_config(cfg, "latency")
+    assert (lat.query_block, lat.dispatch_blocks, lat.model_slab) == (8, 1, 128)
+    assert serve_config(cfg, "throughput") is cfg
+    with pytest.raises(ValueError):
+        serve_config(cfg, "bogus")

@@ -4,14 +4,15 @@ subsetted for speed).  Skipped when the dataset is unavailable."""
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.ops.jaccard import JaccardScorer
-from doppelspeller_tpu.ops.ngram_index import build_truth_index
-from doppelspeller_tpu.utils import text as T
-from doppelspeller_tpu.utils.io import TitleSet
+pd = pytest.importorskip("pandas")      # test-side convenience only
+
+from doppelspeller.config import Config
+from doppelspeller.ops.jaccard import JaccardScorer
+from doppelspeller.ops.ngram_index import build_truth_index
+from doppelspeller.utils import text as T
+from doppelspeller.utils.io import TitleSet
 
 
 @pytest.fixture(scope="module")
@@ -83,19 +84,20 @@ def test_exact_example_titles_score_one(example):
 
 
 @pytest.mark.slow
-def test_full_example_parity(tmp_path):
+def test_full_example_parity(tmp_path, example_data_dir):
     """Full train -> predict -> accuracy on the 30k/10k example set; pins the
     README parity claim (custom error <= 700 vs reference 633).  ~minutes on
     CPU — run explicitly: pytest -m slow tests/test_example_dataset.py."""
     import subprocess
     import sys
 
-    out = tmp_path / "PARITY.json"
-    env = dict(os.environ, PARITY_PLATFORM="cpu")  # hermetic: no TPU attach
+    out = tmp_path / "parity.json"
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
-        [sys.executable, "scripts/example_parity.py", "--out", str(out)],
-        cwd="/root/repo", capture_output=True, text=True, timeout=3600,
-        env=env,
+        [sys.executable, "scripts/example_parity.py", "--out", str(out),
+         "--data-dir", str(example_data_dir)],
+        cwd=repo, capture_output=True, text=True, timeout=3600, env=env,
     )
     assert r.returncode == 0, r.stdout + r.stderr
     import json
@@ -113,9 +115,9 @@ def test_cascade_stages_on_real_data(example):
     matches are correct, and the device cascade equals the host path on this
     messier distribution (round-1 review: stages 2-3 were only exercised on
     synthetic worlds)."""
-    from doppelspeller_tpu.models.gbt import GBTParams
-    from doppelspeller_tpu.models.trainer import train_model
-    from doppelspeller_tpu.pipeline import Matcher
+    from doppelspeller.models.gbt import GBTParams
+    from doppelspeller.models.trainer import train_model
+    from doppelspeller.pipeline import Matcher
 
     cfg, truth_df, test_df = example
     truth_sub = truth_df.iloc[:800]

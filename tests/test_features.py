@@ -13,14 +13,14 @@ import string
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.ops.features import (
+from doppelspeller.config import Config
+from doppelspeller.ops.features import (
     FEATURES_COUNT,
     construct_features,
     remove_spaces_host,
     split_words_host,
 )
-from doppelspeller_tpu.utils import text as T
+from doppelspeller.utils import text as T
 
 
 def _lcs(a: str, b: str) -> int:
@@ -197,9 +197,9 @@ def test_encoded_wo_equals_remove_spaces_host():
     """TitleSet.encoded_wo (string-codec path, built lazily once) must equal
     the vectorized window compaction of the encoded matrix — stage 3 relies
     on them interchangeably."""
-    from doppelspeller_tpu.config import Config
-    from doppelspeller_tpu.ops.features import remove_spaces_host
-    from doppelspeller_tpu.utils.io import TitleSet
+    from doppelspeller.config import Config
+    from doppelspeller.ops.features import remove_spaces_host
+    from doppelspeller.utils.io import TitleSet
 
     cfg = Config(max_characters=32)  # force truncation on the long title
     ts = TitleSet.from_titles(
@@ -218,7 +218,7 @@ def test_features_for_pairs_matches_construct_features():
     """The resident-gather pair path (training hot path) must produce the
     same 66-dim features as the host-shipped construct_features path for
     identical (query, truth-row) pairs."""
-    from doppelspeller_tpu.ops.features import features_for_pairs
+    from doppelspeller.ops.features import features_for_pairs
 
     rng = random.Random(7)
     words = ["alpha", "betaworks", "gamma", "deltacorp", "epsilon",

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from doppelspeller_tpu.models.gbt import (
+from doppelspeller.models.gbt import (
     GBTModel,
     GBTParams,
     auc_score,
@@ -93,7 +93,7 @@ def test_predict_raw_matches_binned_semantics():
     model = train_gbt(X, y, Xe, ye, params, verbose_every=0)
 
     import jax.numpy as jnp
-    from doppelspeller_tpu.models.gbt import predict_tree_binned
+    from doppelspeller.models.gbt import predict_tree_binned
 
     Xb = bin_features(Xe, model.edges)
     base_margin = np.log(model.base_score / (1 - model.base_score))

@@ -1,4 +1,4 @@
-"""Retrieval parity tests: packed-index MXU scorer vs brute-force set-math oracle.
+"""Retrieval parity tests: packed-index scorer vs brute-force set-math oracle.
 
 Oracle reimplements the reference semantics from scratch (match_maker.py:16-50):
 weighted-Jaccard = Σ idf(common n-grams) / (Σ idf(truth n-grams) +
@@ -12,11 +12,11 @@ import string
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.ops.jaccard import JaccardScorer
-from doppelspeller_tpu.ops.ngram_index import TruthIndex, build_truth_index, plan_query_blocks
-from doppelspeller_tpu.utils import text as T
-from doppelspeller_tpu.utils.io import TitleSet
+from doppelspeller.config import Config
+from doppelspeller.ops.jaccard import JaccardScorer
+from doppelspeller.ops.ngram_index import TruthIndex, build_truth_index, plan_query_blocks
+from doppelspeller.utils import text as T
+from doppelspeller.utils.io import TitleSet
 
 
 def _random_titles(n, rng, min_len=3, max_len=40):
@@ -162,8 +162,8 @@ def test_device_index_build_matches_host(small_world):
     bit-for-bit equal to the host builder: packed bytes, df, idf, sums."""
     import numpy as np
 
-    from doppelspeller_tpu.ops.index_device import build_truth_index_device
-    from doppelspeller_tpu.ops.ngram_index import build_truth_index
+    from doppelspeller.ops.index_device import build_truth_index_device
+    from doppelspeller.ops.ngram_index import build_truth_index
 
     cfg, truth, queries, host, idf_map, max_idf = small_world
     dev = build_truth_index_device(truth, cfg, block=64)

@@ -10,9 +10,9 @@ import string
 
 import numpy as np
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.ops.levenshtein import batched_ratio, lcs_kernel, ratio_rounded
-from doppelspeller_tpu.utils import text as T
+from doppelspeller.config import Config
+from doppelspeller.ops.levenshtein import batched_ratio, lcs_kernel, ratio_rounded
+from doppelspeller.utils import text as T
 
 import jax.numpy as jnp
 
@@ -117,7 +117,7 @@ def test_rounding_is_bankers():
 
 def test_bitparallel_matches_scan_kernel():
     import jax.numpy as jnp
-    from doppelspeller_tpu.ops.levenshtein import lcs_kernel, lcs_kernel_scan
+    from doppelspeller.ops.levenshtein import lcs_kernel, lcs_kernel_scan
 
     rng = random.Random(99)
     alphabet = string.ascii_lowercase[:9] + " 012"

@@ -2,7 +2,7 @@
 
 import random
 
-from doppelspeller_tpu.utils.misspell import (
+from doppelspeller.utils.misspell import (
     EUCLIDEAN_NEIGHBOURS,
     add_letter,
     add_space,

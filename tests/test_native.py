@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.native import (
+from doppelspeller.config import Config
+from doppelspeller.native import (
     build_index_native,
     get_lib,
     transform_titles_native,
 )
-from doppelspeller_tpu.utils import text as T
+from doppelspeller.utils import text as T
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="no C++ toolchain")
 
@@ -49,7 +49,7 @@ def test_transform_whitespace_fallback():
 
 def test_build_index_parity():
     cfg = Config(data_path="/tmp/x", title_block=128)
-    from doppelspeller_tpu.utils.io import TitleSet
+    from doppelspeller.utils.io import TitleSet
     import os
 
     os.environ.pop("DOPPEL_DISABLE_NATIVE", None)

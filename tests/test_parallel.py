@@ -10,22 +10,22 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.models.gbt import (
+from doppelspeller.config import Config
+from doppelspeller.models.gbt import (
     bin_features,
     build_tree_kernel,
     compute_bin_edges,
     margin_grad_hess,
     predict_tree_binned,
 )
-from doppelspeller_tpu.ops.jaccard import JaccardScorer
-from doppelspeller_tpu.ops.ngram_index import build_truth_index
-from doppelspeller_tpu.parallel.sharded import (
+from doppelspeller.ops.jaccard import JaccardScorer
+from doppelspeller.ops.ngram_index import build_truth_index
+from doppelspeller.parallel.sharded import (
     ShardedJaccardScorer,
     dp_boost_round,
     make_mesh,
 )
-from doppelspeller_tpu.utils.io import TitleSet
+from doppelspeller.utils.io import TitleSet
 
 
 def _titles(n, rng):
@@ -109,8 +109,8 @@ def test_dp_boost_round_matches_single(world):
 @pytest.fixture(scope="module")
 def world_small():
     """Tiny trained world for the full-cascade mesh test."""
-    from doppelspeller_tpu.models.trainer import train_model
-    from doppelspeller_tpu.utils.misspell import generate_misspelled_name
+    from doppelspeller.models.trainer import train_model
+    from doppelspeller.utils.misspell import generate_misspelled_name
 
     rng = random.Random(21)
     cfg = Config(
@@ -151,7 +151,7 @@ def test_train_gbt_mesh_matches_single_device():
     """Full multi-round data-parallel training (train_gbt(mesh=)) must grow
     an equivalent forest to single-device training — N deliberately not a
     device multiple to exercise weight-0 shard padding (VERDICT round-2 #4)."""
-    from doppelspeller_tpu.models.gbt import GBTParams, train_gbt
+    from doppelspeller.models.gbt import GBTParams, train_gbt
 
     rng = np.random.RandomState(3)
     N, F = 1003, 16
@@ -198,7 +198,7 @@ def test_train_model_mesh_end_to_end(world_small):
     jaccard ties at the top-k tail are merge-order-dependent between the
     sharded and single scorers (sharded-retrieval score parity is covered by
     test_sharded_topk_matches_single_device)."""
-    from doppelspeller_tpu.models.trainer import train_model
+    from doppelspeller.models.trainer import train_model
 
     cfg, truth, train, test, model_single = world_small
     scorer = JaccardScorer(build_truth_index(truth, cfg), cfg)
@@ -217,25 +217,32 @@ def test_train_model_mesh_end_to_end(world_small):
     assert "boosting_seconds" in report["timings"]
 
 
-def test_sharded_pallas_interpret_matches_xla(world):
-    """The mesh Pallas branch (parallel/sharded.py multiblock pallas path)
-    must run in CI via interpret mode and agree with the XLA mesh path
-    (VERDICT round-2 weak #5)."""
+def test_sharded_two_hash_folded_matches_single_device(world):
+    """The production retrieval algorithm on the mesh — lossy two-hash
+    folded coarse pass in plain XLA + exact rescore — keeps every candidate
+    the single-device folded scorer keeps (per-shard rescore depth matches
+    the single-device depth)."""
     cfg, truth, queries, index = world
-    cfg_exact = cfg.with_(topk_recall_target=1.0)
+    cfgf = cfg.with_(retrieval_mode="folded", fold_dim=256, rescore_depth=64,
+                     fold_hashes=2, retrieval_window_select=False)
     mesh = make_mesh(8)
-    sh_xla = ShardedJaccardScorer(index, mesh, cfg_exact.with_(retrieval_impl="xla"))
-    sh_pl = ShardedJaccardScorer(
-        index, mesh, cfg_exact.with_(retrieval_impl="pallas_interpret")
-    )
-    s1, p1 = sh_xla.topk(queries, k=9)
-    s2, p2 = sh_pl.topk(queries, k=9)
-    np.testing.assert_allclose(s1, s2, rtol=1e-5, atol=1e-6)
-    # positions may legitimately differ under score ties (and ulp-level
-    # summation-order differences between the pallas and xla reductions);
-    # where the top-1 is strictly separated, the argmax must agree
-    clear = s1[:, 0] > s1[:, 1] + 1e-5
-    np.testing.assert_array_equal(p1[clear, 0], p2[clear, 0])
+    sharded = ShardedJaccardScorer(index, mesh, cfgf, truth=truth)
+    single = JaccardScorer(index, cfgf, truth=truth)
+    assert (sharded.folded.folds, sharded.folded.route) == (2, "xla")
+    s1, p1 = single.topk(queries, k=9)
+    s2, p2 = sharded.topk(queries, k=9)
+    # the union of the per-shard coarse top-k' holds the global coarse
+    # top-k', so after the exact rescore the mesh's ranked scores dominate
+    # the single device's, and a title in both lists has one exact score
+    assert (s2 >= s1 - 1e-6).all()
+    shared = 0
+    for i in range(len(p1)):
+        got = dict(zip(p2[i].tolist(), s2[i].tolist()))
+        for p, v in zip(p1[i].tolist(), s1[i].tolist()):
+            if p in got:
+                assert abs(got[p] - v) <= 1e-5 * abs(v) + 1e-6
+                shared += 1
+    assert shared > 0.5 * p1.size
 
 
 @pytest.mark.heavy
@@ -244,8 +251,8 @@ def test_mesh_full_cascade_matches_single_device(world_small):
     must reproduce the single-device cascade exactly (VERDICT round-1:
     multi-chip was a demo, not integrated into the product)."""
     cfg, truth, train, test, model = world_small
-    from doppelspeller_tpu.parallel.sharded import make_mesh
-    from doppelspeller_tpu.pipeline import Matcher
+    from doppelspeller.parallel.sharded import make_mesh
+    from doppelspeller.pipeline import Matcher
 
     mesh = make_mesh(8, axis="titles", platform="cpu")
     m_single = Matcher(cfg.with_(cascade_impl="device"), truth=truth, model=model)
@@ -262,7 +269,7 @@ def test_mesh_built_index_matches_host(world):
     """build_sharded_index (per-device on-mesh construction, the 10M-title
     path) must produce bit-identical packed shards, df/idf/sums, and
     identical retrieval results to a host-built index placed on the mesh."""
-    from doppelspeller_tpu.parallel.sharded import build_sharded_index
+    from doppelspeller.parallel.sharded import build_sharded_index
 
     cfg, truth, queries, index = world
     mesh = make_mesh(8)
@@ -289,26 +296,24 @@ def test_mesh_built_index_matches_host(world):
     np.testing.assert_array_equal(p1[~ties], p2[~ties])
 
 
-def test_mesh_built_index_pallas_interpret(world):
-    """The mesh build must also serve the Pallas retrieval branch (3-D tile
-    pages + π-permuted sums built on device) — run it in interpret mode."""
-    from doppelspeller_tpu.parallel.sharded import build_sharded_index
+def test_mesh_built_index_two_hash_folded(world):
+    """The mesh build (no host packed matrix) must also serve the two-hash
+    folded XLA engine: same results as a host-built index placed on the
+    mesh under the same config."""
+    from doppelspeller.parallel.sharded import build_sharded_index
 
     cfg, truth, queries, index = world
-    cfg_p = cfg.with_(retrieval_impl="pallas_interpret", topk_recall_target=1.0)
+    cfgf = cfg.with_(retrieval_mode="folded", fold_dim=256, rescore_depth=64,
+                     fold_hashes=2, retrieval_window_select=False)
     mesh = make_mesh(8)
-    built = build_sharded_index(truth, mesh, cfg_p)
-    placed = ShardedJaccardScorer(index, mesh, cfg_p)
-    # the device-computed per-title sums differ from the host's only by
-    # summation order (ulp-level), in the same π-permuted layout
-    np.testing.assert_allclose(
-        np.asarray(built.sums_perm_d), np.asarray(placed.sums_perm_d),
-        rtol=1e-5, atol=1e-5,
-    )
+    built = build_sharded_index(truth, mesh, cfgf)
+    placed = ShardedJaccardScorer(index, mesh, cfgf, truth=truth)
+    assert built.folded is not None and placed.folded is not None
+    np.testing.assert_array_equal(np.asarray(built.folded.mc_d),
+                                  np.asarray(placed.folded.mc_d))
     s1, p1 = placed.topk(queries, k=7)
     s2, p2 = built.topk(queries, k=7)
     np.testing.assert_allclose(s1, s2, rtol=1e-5, atol=1e-6)
-    # where the top-1 is strictly separated, the argmax must agree
     clear = s1[:, 0] > s1[:, 1] + 1e-5
     assert clear.any()
     np.testing.assert_array_equal(p1[clear, 0], p2[clear, 0])
@@ -322,7 +327,7 @@ def world_folded(world):
     injective-fold config (fold_dim >= observed trigrams ⇒ the coarse pass
     IS the exact computation, so every path must agree bit-for-bit)."""
     cfg, truth, queries, index = world
-    cfg = cfg.with_(topk_recall_target=1.0, retrieval_window_select=False)
+    cfg = cfg.with_(retrieval_window_select=False)
     observed = int((index.df > 0).sum())
     assert observed <= 8192, "world too big for the injective test"
     cfg_inj = cfg.with_(retrieval_mode="folded", fold_dim=8192,
@@ -369,25 +374,32 @@ def test_mesh_folded_lossy_head_retained(world_folded):
 
 
 @pytest.mark.heavy
-def test_mesh_folded_pallas_interpret_matches_xla(world_folded):
-    """The mesh folded pallas branch (coarse pass through
-    jaccard_topk_pallas_v2 on the local Mc shard) must agree with the XLA
-    mesh folded path in interpret mode."""
+def test_mesh_folded_triton_interpret_matches_xla(world_folded):
+    """The mesh folded coarse pass through the Pallas-Triton kernel
+    (interpret mode here) on each local Mc shard must agree with the plain
+    XLA mesh path under the production coarse config (bf16, two hashes,
+    windowed select), after the exact rescore."""
     cfg, cfg_inj, truth, queries, index, vs_e, ps_e = world_folded
     mesh = make_mesh(8)
     sub = np.arange(16)
+    # rescore_depth 16: each 128-title shard has 16 windows, so the kernel
+    # (not the narrow-shard plain scorer) runs
+    prod = dict(retrieval_mode="folded", fold_dim=256, rescore_depth=16,
+                fold_hashes=2, score_dtype="bfloat16",
+                retrieval_window_select=True)
     s_x = ShardedJaccardScorer(
-        index, mesh, cfg_inj.with_(retrieval_impl="xla"), truth=truth
+        index, mesh, cfg.with_(retrieval_impl="xla", **prod), truth=truth
     )
-    s_p = ShardedJaccardScorer(
-        index, mesh, cfg_inj.with_(retrieval_impl="pallas_interpret"),
-        truth=truth,
+    s_t = ShardedJaccardScorer(
+        index, mesh, cfg.with_(retrieval_impl="triton", **prod), truth=truth,
     )
+    s_t.folded.route = "triton_interpret"
     vx, px = s_x.topk(queries, k=9, rows=sub)
-    vp, pp = s_p.topk(queries, k=9, rows=sub)
-    np.testing.assert_allclose(vx, vp, rtol=1e-5, atol=1e-6)
+    vt, pt = s_t.topk(queries, k=9, rows=sub)
+    np.testing.assert_allclose(vx, vt, rtol=1e-5, atol=1e-6)
     clear = vx[:, 0] > vx[:, 1] + 1e-5
-    np.testing.assert_array_equal(px[clear, 0], pp[clear, 0])
+    assert clear.any()
+    np.testing.assert_array_equal(px[clear, 0], pt[clear, 0])
 
 
 def test_mesh_folded_respects_retrieval_mode(world_folded):
@@ -407,7 +419,7 @@ def test_mesh_folded_respects_retrieval_mode(world_folded):
 def test_mesh_folded_mesh_built_index(world_folded):
     """build_sharded_index (no host packed matrix) must also serve the
     folded engine — the folded shards build from the encodings alone."""
-    from doppelspeller_tpu.parallel.sharded import build_sharded_index
+    from doppelspeller.parallel.sharded import build_sharded_index
 
     cfg, cfg_inj, truth, queries, index, vs_e, ps_e = world_folded
     mesh = make_mesh(8)
@@ -425,11 +437,11 @@ def test_mesh_folded_full_cascade_matches_single(world_small):
     single-chip folded cascade exactly (probe path + device cascade on top
     of the mesh folded engine)."""
     cfg, truth, train, test, model = world_small
-    from doppelspeller_tpu.pipeline import Matcher
+    from doppelspeller.pipeline import Matcher
 
     cfgf = cfg.with_(cascade_impl="device", retrieval_mode="folded",
                      fold_dim=8192, rescore_depth=16,
-                     topk_recall_target=1.0, retrieval_window_select=False)
+                     retrieval_window_select=False)
     mesh = make_mesh(8, axis="titles", platform="cpu")
     m_single = Matcher(cfgf, truth=truth, model=model)
     m_mesh = Matcher(cfgf, truth=truth, model=model, mesh=mesh)
@@ -447,8 +459,8 @@ def test_mesh_index_checkpoint_roundtrip(world, tmp_path):
     """VERDICT r3 missing #1: a mesh-built index must checkpoint (per-shard
     fetch, host peak ≈ one shard) and load back onto a mesh — same results;
     re-chunking onto a different mesh size must also work."""
-    from doppelspeller_tpu.ops.ngram_index import TruthIndex
-    from doppelspeller_tpu.parallel.sharded import build_sharded_index
+    from doppelspeller.ops.ngram_index import TruthIndex
+    from doppelspeller.parallel.sharded import build_sharded_index
 
     cfg, truth, queries, index = world
     mesh8 = make_mesh(8)
@@ -499,8 +511,8 @@ def test_matcher_mesh_checkpoint_resume(world, tmp_path, caplog):
     and reject a stale one."""
     import logging
 
-    from doppelspeller_tpu.parallel.sharded import build_sharded_index
-    from doppelspeller_tpu.pipeline import Matcher
+    from doppelspeller.parallel.sharded import build_sharded_index
+    from doppelspeller.pipeline import Matcher
 
     cfg, truth, queries, index = world
     cfg2 = cfg.with_(data_path=str(tmp_path))
@@ -508,7 +520,7 @@ def test_matcher_mesh_checkpoint_resume(world, tmp_path, caplog):
     built = build_sharded_index(truth, mesh, cfg2)
     built.save(cfg2.index_path)
 
-    with caplog.at_level(logging.INFO, logger="doppelspeller_tpu.pipeline"):
+    with caplog.at_level(logging.INFO, logger="doppelspeller.pipeline"):
         m = Matcher(cfg2, truth=truth, mesh=mesh)
     assert any("onto the mesh" in r.message for r in caplog.records)
     ref_s, ref_p = built.topk(queries, k=15)
@@ -521,7 +533,7 @@ def test_matcher_mesh_checkpoint_resume(world, tmp_path, caplog):
         list(truth.titles) + ["zz brand new co"], config=cfg2
     )
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="doppelspeller_tpu.pipeline"):
+    with caplog.at_level(logging.WARNING, logger="doppelspeller.pipeline"):
         m2 = Matcher(cfg2, truth=truth2, mesh=mesh)
     assert any("does not match" in r.message for r in caplog.records)
     assert m2.index.num_titles == len(truth2)

@@ -5,16 +5,16 @@ import string
 
 import numpy as np
 
-from doppelspeller_tpu import constants as c
-from doppelspeller_tpu.models.trainer import (
+from doppelspeller import constants as c
+from doppelspeller.models.trainer import (
     assemble_training_pairs,
     evaluation_indexes,
 )
-from doppelspeller_tpu.ops.jaccard import JaccardScorer
-from doppelspeller_tpu.ops.ngram_index import build_truth_index
-from doppelspeller_tpu.pipeline import Matcher, accuracy_report
-from doppelspeller_tpu.utils.io import single_title_set
-from doppelspeller_tpu.utils.misspell import generate_misspelled_name
+from doppelspeller.ops.jaccard import JaccardScorer
+from doppelspeller.ops.ngram_index import build_truth_index
+from doppelspeller.pipeline import Matcher, accuracy_report
+from doppelspeller.utils.io import single_title_set
+from doppelspeller.utils.misspell import generate_misspelled_name
 
 
 def _word(rng, n):

@@ -5,16 +5,16 @@ import random
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.models.gbt import GBTParams, train_gbt
-from doppelspeller_tpu.models.trainer import WordCounts
-from doppelspeller_tpu.ops.features import (
+from doppelspeller.config import Config
+from doppelspeller.models.gbt import GBTParams, train_gbt
+from doppelspeller.models.trainer import WordCounts
+from doppelspeller.ops.features import (
     construct_features,
     remove_spaces_host,
     split_words_host,
 )
-from doppelspeller_tpu.ops.rerank import RerankEngine
-from doppelspeller_tpu.utils.io import TitleSet
+from doppelspeller.ops.rerank import RerankEngine
+from doppelspeller.utils.io import TitleSet
 
 
 def _titles(n, rng):

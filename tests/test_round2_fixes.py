@@ -13,10 +13,10 @@ import math
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.config import Config
-from doppelspeller_tpu.ops.ngram_index import build_truth_index, plan_query_blocks
-from doppelspeller_tpu.utils import text as T
-from doppelspeller_tpu.utils.io import TitleSet, load_ground_truth, load_test_data
+from doppelspeller.config import Config
+from doppelspeller.ops.ngram_index import build_truth_index, plan_query_blocks
+from doppelspeller.utils import text as T
+from doppelspeller.utils.io import TitleSet, load_ground_truth, load_test_data
 
 
 def test_csv_schema_validation(tmp_path):
@@ -70,7 +70,7 @@ def test_everywhere_trigram_uses_zero_idf_not_fallback(tmp_path):
 
 def test_index_checkpoint_detects_title_edit(tmp_path):
     """Same ids + count but edited titles must invalidate the checkpoint."""
-    from doppelspeller_tpu.pipeline import Matcher
+    from doppelspeller.pipeline import Matcher
 
     cfg = Config(data_path=str(tmp_path), title_block=128, query_block=8,
                  score_dtype="float32")
@@ -97,7 +97,7 @@ def test_index_checkpoint_detects_title_edit(tmp_path):
 
 
 def test_native_separator_controls_parity():
-    from doppelspeller_tpu.native import get_lib, transform_titles_native
+    from doppelspeller.native import get_lib, transform_titles_native
 
     if get_lib() is None:
         pytest.skip("no C++ toolchain")

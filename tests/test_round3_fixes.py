@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.pipeline import Matcher, STAGE_EXACT, STAGE_FUZZY
-from doppelspeller_tpu.utils.io import TitleSet
+from doppelspeller.pipeline import Matcher, STAGE_EXACT, STAGE_FUZZY
+from doppelspeller.utils.io import TitleSet
 
 # reuse the trained tiny-world fixtures
 
@@ -67,7 +67,7 @@ def test_gbt_extreme_negative_feature_not_missing():
     before the sentinel test)."""
     import jax.numpy as jnp
 
-    from doppelspeller_tpu.models.gbt import predict_forest_margin
+    from doppelspeller.models.gbt import predict_forest_margin
 
     # one tree, one internal node: f0 <= 0.5 -> left leaf 1.0, else right 2.0;
     # missing goes RIGHT
@@ -81,60 +81,3 @@ def test_gbt_extreme_negative_feature_not_missing():
     m = predict_forest_margin(X, feat, thr, ml, value, is_leaf, 1, 0.0)
     # -1e25 is a real (left) value; NaN is missing (right)
     np.testing.assert_allclose(np.asarray(m), [1.0, 2.0, 1.0, 2.0])
-
-
-@pytest.mark.heavy
-def test_device_built_index_single_resident_copy(tmp_path):
-    """Round-3 1M-title OOM fix: a pallas JaccardScorer over a device-built
-    index must not keep the flat packed matrix alive next to its page-layout
-    relayout (2 x 6.4 GB at 1M titles OOMs a 16 GB chip).  The scorer donates
-    the flat buffer, stashes the pages on the index, and leaves a (V, 0)
-    sentinel; checkpointing reconstructs the flat matrix bit-for-bit."""
-    from doppelspeller_tpu.config import Config
-    from doppelspeller_tpu.ops.jaccard import JaccardScorer
-    from doppelspeller_tpu.ops.ngram_index import TruthIndex, build_truth_index
-    from doppelspeller_tpu.utils.io import TitleSet
-
-    from doppelspeller_tpu.ops.jaccard_pallas import relayout_to_pages
-
-    cfg = Config(data_path=str(tmp_path), query_block=8,
-                 index_build_impl="device", retrieval_impl="pallas",
-                 score_dtype="float32")
-    truth = TitleSet.from_titles(
-        [f"acme {i:04d} holdings" for i in range(40)], config=cfg)
-    host = build_truth_index(
-        truth, cfg.with_(index_build_impl="host", retrieval_impl="xla"))
-    dev = build_truth_index(truth, cfg)
-    # pallas-bound device build emits the page layout directly: no flat
-    # matrix ever exists on device
-    assert dev.packed_pages is not None
-    assert dev.packed.shape == (host.packed.shape[0], 0)
-    np.testing.assert_array_equal(
-        np.asarray(dev.packed_pages).reshape(host.packed.shape), host.packed)
-
-    scorer = JaccardScorer(dev, cfg)
-    assert scorer.packed_d is dev.packed_pages
-    assert scorer.packed_d.shape == (
-        host.packed.shape[0], 32, host.packed.shape[1] // 32)
-    np.testing.assert_array_equal(
-        np.asarray(scorer.packed_d).reshape(host.packed.shape), host.packed)
-
-    # a second scorer reuses the resident pages instead of re-relayouting
-    scorer2 = JaccardScorer(dev, cfg)
-    assert scorer2.packed_d is dev.packed_pages
-
-    # checkpoint reconstructs the flat matrix from the pages
-    path = str(tmp_path / "idx.npz")
-    dev.save(path)
-    loaded = TruthIndex.load(path)
-    np.testing.assert_array_equal(loaded.packed, host.packed)
-
-    # the chunked-relayout fallback (flat device matrix -> pages) used when
-    # a flat-built index meets a pallas scorer must be bit-exact too
-    import jax.numpy as jnp
-
-    flat = jnp.asarray(host.packed)
-    pages = relayout_to_pages(flat)
-    np.testing.assert_array_equal(
-        np.asarray(pages),
-        host.packed.reshape(host.packed.shape[0], 32, -1))

@@ -1,15 +1,11 @@
 """Regression tests for the round-4 VERDICT/ADVICE findings."""
 
 import logging
-from dataclasses import replace
 
 import numpy as np
-import pytest
 
-from doppelspeller_tpu.ops.jaccard import JaccardScorer
-from doppelspeller_tpu.ops.ngram_index import build_truth_index
-from doppelspeller_tpu.pipeline import Matcher
-from doppelspeller_tpu.utils.io import TitleSet
+from doppelspeller.pipeline import Matcher
+from doppelspeller.utils.io import TitleSet
 
 # reuse the trained tiny-world fixtures
 
@@ -44,7 +40,7 @@ def test_fuzzy_tile_cap_overflow_host_redo(world, trained, caplog):  # noqa: F81
 
     capped = cfg.with_(cascade_impl="device", fuzzy_tile_cap=32)
     m_cap = Matcher(capped, truth=truth2, model=model)
-    with caplog.at_level(logging.WARNING, logger="doppelspeller_tpu.pipeline"):
+    with caplog.at_level(logging.WARNING, logger="doppelspeller.pipeline"):
         r_cap = m_cap.predict(queries)
     # the overflow branch must have fired (otherwise this test is vacuous)
     assert any("fuzzy device overflow" in rec.message for rec in caplog.records)
@@ -62,58 +58,3 @@ def test_fuzzy_tile_cap_overflow_host_redo(world, trained, caplog):  # noqa: F81
     assert sum(r_cap.stage_counts.values()) == matched
     for stage in ("exact", "fuzzy", "model"):
         assert r_cap.stage_counts.get(stage, 0) == r_host.stage_counts.get(stage, 0)
-
-
-def test_xla_scorer_reconstructs_page_layout_index(world):  # noqa: F811
-    """ADVICE r3: an index whose packed matrix exists only in the (V, 32, W)
-    page layout (relayouted by a pallas scorer, or built page-direct on
-    device) must still be scoreable by a non-pallas scorer — via flat-matrix
-    reconstruction, not an error."""
-    cfg, truth, train, test, actuals = world
-    cfg256 = cfg.with_(title_block=256, retrieval_impl="xla")
-    index = build_truth_index(truth, cfg256)
-    nb = index.padded_titles // 8
-    assert nb % 32 == 0
-    import jax.numpy as jnp
-
-    pages = jnp.asarray(index.packed.reshape(index.vocab_size, 32, nb // 32))
-    paged = replace(
-        index, packed=np.empty((index.vocab_size, 0), np.uint8),
-        packed_pages=pages,
-    )
-
-    s_ref = JaccardScorer(index, cfg256)
-    s_paged = JaccardScorer(paged, cfg256)     # must reconstruct, not raise
-    k = 10
-    ref_scores, ref_pos = s_ref.topk(test, k=k)
-    got_scores, got_pos = s_paged.topk(test, k=k)
-    np.testing.assert_allclose(ref_scores, got_scores, rtol=1e-6)
-    np.testing.assert_array_equal(ref_pos, got_pos)
-
-
-def test_pallas_scorer_honors_device_for_cached_pages(world):  # noqa: F811
-    """ADVICE r3: a pallas scorer built with an explicit ``device`` must move
-    a cached page-layout matrix onto that device instead of silently scoring
-    from wherever the pages were built."""
-    import jax
-
-    devices = jax.devices()
-    if len(devices) < 2:
-        pytest.skip("needs >= 2 devices")
-    cfg, truth, train, test, actuals = world
-    # the page-layout branch requires nb % 4096 == 0 (padded 32768 titles)
-    cfg_p = cfg.with_(title_block=32768, retrieval_impl="pallas",
-                      index_build_impl="host")
-    index = build_truth_index(truth, cfg_p)
-    nb = index.padded_titles // 8
-    pages = jax.device_put(
-        index.packed.reshape(index.vocab_size, 32, nb // 32), devices[0]
-    )
-    paged = replace(
-        index, packed=np.empty((index.vocab_size, 0), np.uint8),
-        packed_pages=pages,
-    )
-    scorer = JaccardScorer(paged, cfg_p, device=devices[1])
-    assert scorer.packed_d.device == devices[1]
-    # and the index cache is updated so the move happens once
-    assert paged.packed_pages.device == devices[1]

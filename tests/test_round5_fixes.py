@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.pipeline import Matcher
-from doppelspeller_tpu.utils.io import TitleSet
+from doppelspeller.pipeline import Matcher
+from doppelspeller.utils.io import TitleSet
 
 
 def test_predict_rejects_width_mismatch(world, trained):

@@ -7,9 +7,9 @@ import random
 import numpy as np
 import pytest
 
-from doppelspeller_tpu.pipeline import Matcher
-from doppelspeller_tpu.utils.io import TitleSet, single_title_set
-from doppelspeller_tpu.utils.misspell import generate_misspelled_name
+from doppelspeller.pipeline import Matcher
+from doppelspeller.utils.io import TitleSet, single_title_set
+from doppelspeller.utils.misspell import generate_misspelled_name
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +82,7 @@ def test_fused_bucket_fallback_is_exact(world, trained, caplog):
     qs = ["aaxq bbxq ccxq"] + list(test.titles[30:35])   # query len 14 < 32
     batch = TitleSet.from_titles(qs, ids=np.arange(len(qs), dtype=np.int64),
                                  config=cfg)
-    with caplog.at_level(logging.INFO, logger="doppelspeller_tpu.ops.serve_fused"):
+    with caplog.at_level(logging.INFO, logger="doppelspeller.ops.serve_fused"):
         r1 = m_fused.predict(batch)
     assert any("classic host redo" in rec.message for rec in caplog.records), (
         "probe-gated fallback did not fire — test is vacuous"
@@ -99,7 +99,7 @@ def test_fused_folded_retrieval_matches_classic(world, trained):
     cfg, truth, train, test, actuals = world
     model, _ = trained
     cfgf = cfg.with_(retrieval_mode="folded", fold_dim=8192, rescore_depth=16,
-                     topk_recall_target=1.0, retrieval_window_select=False)
+                     retrieval_window_select=False)
     m_fused = Matcher(cfgf, truth=truth, model=model)
     m_classic = Matcher(cfgf.with_(serve_fused="off"), truth=truth,
                         model=model)

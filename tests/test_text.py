@@ -4,7 +4,7 @@ import math
 
 import numpy as np
 
-from doppelspeller_tpu.utils import text as T
+from doppelspeller.utils import text as T
 
 
 def test_transform_title_golden():
